@@ -23,8 +23,8 @@ import numpy as np
 
 
 def synthetic_dataset(outdir: str):
-    from telr_tpu.io.fasta import write_fasta
-    from telr_tpu.io.seqs import Sequence, revcomp_codes
+    from telr_jax.io.fasta import write_fasta
+    from telr_jax.io.seqs import Sequence, revcomp_codes
     rng = np.random.default_rng(7)
     G = 120_000
     ref = rng.integers(0, 4, G).astype(np.int8)
@@ -75,9 +75,9 @@ def main():
     ap.add_argument("--synthetic", action="store_true")
     args = ap.parse_args()
 
-    from telr_tpu.config import SVConfig, TELRConfig
-    from telr_tpu.io.fasta import read_fasta
-    from telr_tpu.pipeline import run_pipeline
+    from telr_jax.config import SVConfig, TELRConfig
+    from telr_jax.io.fasta import read_fasta
+    from telr_jax.pipeline import run_pipeline
 
     tmp = tempfile.mkdtemp(prefix="telr_bench_")
     if args.synthetic:

@@ -1,12 +1,12 @@
-// telr_tpu native host runtime: fast sequence IO + minimizer sketching.
+// telr_jax native host runtime: fast sequence IO + minimizer sketching.
 //
-// The device compute path is JAX/Pallas; this module is the C++ host-side
-// data layer replacing the role of samtools/seqtk/Biopython parsing in the
+// The device compute path is JAX + CUDA (wave_cuda.cu); this module is the
+// C++ host-side data layer replacing the role of samtools/seqtk/Biopython parsing in the
 // reference toolchain (reference TELR_input.py:329-361,
 // TELR_assembly.py:418-431) and the index-build inner loop (minimizer
 // extraction feeding kernels/index.py).
 //
-// Exposed as a plain C ABI consumed via ctypes (telr_tpu/io/native.py);
+// Exposed as a plain C ABI consumed via ctypes (telr_jax/io/native.py);
 // all buffers are caller-allocated numpy arrays.
 //
 // Build: g++ -O3 -march=native -shared -fPIC -o libtelr_native.so telr_native.cpp
@@ -98,7 +98,7 @@ static inline uint64_t splitmix64(uint64_t x) {
 
 // Computes canonical minimizers of codes[0..n); writes positions, hashes,
 // strands.  Returns count (<= n).  Semantics match
-// telr_tpu/kernels/minimizer.py: invalid (ambiguous or palindromic) k-mers
+// telr_jax/kernels/minimizer.py: invalid (ambiguous or palindromic) k-mers
 // are never selected; ties keep the leftmost; consecutive duplicate
 // selections are collapsed.
 int64_t telr_minimizers(const int8_t* codes, int64_t n, int32_t k, int32_t w,
@@ -160,7 +160,7 @@ int64_t telr_minimizers(const int8_t* codes, int64_t n, int32_t k, int32_t w,
 }
 
 // ---------------------------------------------------------------------------
-// wavefront schedule walk (see telr_tpu/kernels/wavefront.py)
+// wavefront schedule walk (see telr_jax/kernels/wavefront.py)
 // ---------------------------------------------------------------------------
 
 // Given the parity-free target band base per step (target_m, S+1 entries)
@@ -199,7 +199,7 @@ int32_t telr_wave_schedule(const int8_t* q, int64_t lq,
 }
 
 // ---------------------------------------------------------------------------
-// minimizer-index lookup (see telr_tpu/kernels/index.py MinimizerIndex)
+// minimizer-index lookup (see telr_jax/kernels/index.py MinimizerIndex)
 // ---------------------------------------------------------------------------
 
 // Batched equal-range search over the sorted index hash array, accelerated
@@ -249,7 +249,7 @@ void telr_index_lookup(const uint64_t* hashes, int64_t n,
 }
 
 // ---------------------------------------------------------------------------
-// anchor-chaining DP (see telr_tpu/kernels/chain.py — same objective)
+// anchor-chaining DP (see telr_jax/kernels/chain.py — same objective)
 // ---------------------------------------------------------------------------
 
 // Anchors must be pre-sorted by (tpos, qpos).  Writes per-anchor best
@@ -682,15 +682,15 @@ int64_t telr_poa_consensus(const int8_t* backbone, int64_t bb_len,
 extern "C" {
 
 // ---------------------------------------------------------------------------
-// banded affine-gap DP (see telr_tpu/kernels/dp.py _banded_dp_single)
+// banded affine-gap DP (see telr_jax/kernels/dp.py _banded_dp_single)
 // ---------------------------------------------------------------------------
 //
 // Bit-exact C++ replica of the XLA-scan banded DP — the host fallback
 // engine playing the role minimap2's SIMD ksw2 kernel plays in the
-// reference toolchain (reference TELR_alignment.py:31-82).  The TPU
-// compute path is the Pallas wavefront kernel; this serves CPU runs
-// (tests, CPU-only users) and tiny pieces where a device round-trip
-// costs more than the DP.
+// reference toolchain (reference TELR_alignment.py:31-82).  The device
+// compute path is the CUDA wavefront kernel (native/wave_cuda.cu); this
+// serves CPU runs (tests, CPU-only users) and small dispatches where a
+// device launch costs more than the DP.
 
 static inline int32_t imax32(int32_t a, int32_t b) { return a > b ? a : b; }
 
@@ -1022,7 +1022,7 @@ static void banded_dp_one_t(const int8_t* q, int32_t lq_pad,
     out5[3] = bestp;
 }
 
-// Host-side traceback walk (see telr_tpu/kernels/dp.py traceback):
+// Host-side traceback walk (see telr_jax/kernels/dp.py traceback):
 // follows direction bytes from (si, sj) back to the alignment start,
 // emitting run-length-encoded ops (0=M, 1=D, 2=I) in REVERSE order
 // (caller reverses).  Returns the number of runs, or -1 if the walk
@@ -1163,20 +1163,16 @@ void telr_banded_dp_batch(const int8_t* q, const int8_t* t,
 }  // extern "C"
 
 // ---------------------------------------------------------------------------
-// Batched wavefront op-code decode (see pallas_wavefront.py _decode_chunk):
+// Batched wavefront op-code decode (see wave_align.py _decode_chunk):
 // unpack the device's 4-codes-per-byte packed op stream, strip the no-op
 // code 3, reverse into alignment order, run-length-encode, and prepend the
-// boundary lead I(fi)/D(fj) runs — all per pair, threaded over the batch.
-// The Python form of this loop (numpy mask/diff + list zips per pair) was
-// 42.5s of a 147s warm 3Mb/30x stage-1 wall; a linear byte scan is
-// memory-bound.  Two-pass API: count run totals, then fill concatenated
+// boundary lead I(fi)/D(fj) runs — all per pair, threaded over the batch;
+// a linear byte scan is memory-bound.  Two-pass API: count run totals, then fill concatenated
 // (ops, lens) arrays at caller-computed offsets — Python slices per-pair
 // views out of the concatenation with zero copies.
 //
-// packed_t layout: (n, s4) row-major (the TRANSPOSE of the device's
-// (s4, n) output — the caller pays one cheap contiguous copy so each
-// pair's byte stream is linear here; a column-strided walk fetched every
-// cache line 64x).  Code k of pair j = bits 2*(k&3) of
+// packed_t layout: (n, s4) row-major, as the device emits it, so each
+// pair's byte stream is linear here.  Code k of pair j = bits 2*(k&3) of
 // packed_t[j*s4 + (k>>2)], k ascending = walk order (alignment order is
 // k DESCENDING).  op codes: 0=M, 1=D, 2=I, 3=no-op.
 
@@ -1303,11 +1299,10 @@ void telr_wave_decode_fill(const uint8_t* packed, int64_t s4, int64_t n,
 }  // extern "C"
 
 // ---------------------------------------------------------------------------
-// Batched wavefront batch preparation (see pallas_wavefront.py
+// Batched wavefront batch preparation (see wave_align.py
 // prepare_wavefront_batch): the parity walk + wire packing (meta bytes,
-// init windows, scal row, interior-range and canonical-phase block masks)
-// for one pair, as a single GIL-free call — the per-pair numpy loop was
-// 15.4s of the 41.6s warm 3Mb/30x stage-1 wall.  Threaded over pairs.
+// initial q/t windows, scalar row) for one pair, as a single GIL-free
+// call, threaded over pairs.
 
 namespace {
 
@@ -1316,19 +1311,13 @@ static void wave_prepare_one(const int8_t* q, int64_t lq,
                              const int64_t* target_m, int64_t m0,
                              int64_t W, int64_t S_pad,
                              int8_t* meta_row, int8_t* qw_row,
-                             int8_t* tw_row, int32_t* scal8,
-                             int64_t* lohi, uint8_t* alt_row) {
+                             int8_t* tw_row, int32_t* scal4) {
     const int64_t S = lq + lt;
     const int8_t PAD = (int8_t)(1 | (4 << 1) | (4 << 4));
     int64_t m_prev = m0;
     int64_t i0 = (0 - m0) / 2;
     int64_t j0 = (0 + m0) / 2;
     const int64_t i0_start = i0, j0_start = j0;
-    int64_t lo = ((int64_t)1) << 40, hi = 0;
-    int8_t d_prev = 0;
-    const int64_t NB = S_pad / 8;
-    for (int64_t b = 0; b < NB; b++) alt_row[b] = 0;
-    int alt_acc = 1;   // all-true within current block so far
     for (int64_t s = 1; s <= S; s++) {
         int64_t m;
         if (target_m[s] >= m_prev + 1) m = m_prev + 1;
@@ -1346,22 +1335,8 @@ static void wave_prepare_one(const int8_t* q, int64_t lq,
             if (idx >= 0 && idx < lt) ti = t[idx] & 7;
         }
         meta_row[s - 1] = (int8_t)((d > 0 ? 1 : 0) | (qi << 1) | (ti << 4));
-        // interior-range test (band strictly inside the matrix after
-        // this step): i0 >= W, j0 >= 1, i0 <= lq, j0 + W - 1 <= lt - 1
-        if (i0 >= W && j0 >= 1 && i0 <= lq && j0 + W - 1 <= lt - 1) {
-            if (s < lo) lo = s;
-            if (s + 1 > hi) hi = s + 1;
-        }
-        // canonical-phase zigzag test: dbit(s) == s & 1, plus pairwise
-        // alternation vs the previous step (s >= 2)
-        int alt = ((d > 0) == ((s & 1) == 1));
-        if (s >= 2) alt &= (d != d_prev);
-        alt_acc &= alt;
-        if ((s & 7) == 0) { alt_row[(s >> 3) - 1] = (uint8_t)alt_acc; alt_acc = 1; }
-        d_prev = d;
         m_prev = m;
     }
-    // a partial trailing block contains pad steps -> stays false
     for (int64_t s = S; s < S_pad; s++) meta_row[s] = PAD;
     for (int64_t p = 0; p < W; p++) {
         int64_t qidx = i0_start - 1 - p;
@@ -1369,12 +1344,10 @@ static void wave_prepare_one(const int8_t* q, int64_t lq,
         int64_t tidx = j0_start - 1 + p;
         tw_row[p] = (tidx >= 0 && tidx < lt) ? t[tidx] : (int8_t)4;
     }
-    scal8[0] = (int32_t)lq;
-    scal8[1] = (int32_t)lt;
-    scal8[2] = (int32_t)i0_start;
-    scal8[3] = (int32_t)j0_start;
-    lohi[0] = lo;
-    lohi[1] = hi;
+    scal4[0] = (int32_t)lq;
+    scal4[1] = (int32_t)lt;
+    scal4[2] = (int32_t)i0_start;
+    scal4[3] = (int32_t)j0_start;
 }
 
 }  // namespace
@@ -1385,23 +1358,16 @@ extern "C" void telr_wave_prepare_batch(
     const int64_t* tm_ptrs, const int64_t* m0s,
     int64_t n_pairs, int64_t W, int64_t S_pad,
     int8_t* meta /* rows: idx*S_pad */,
-    int8_t* init /* (G,16,W): qw at (idx/8*16 + idx%8)*W, tw +8*W */,
-    int32_t* scal /* rows: idx*8 */,
-    int64_t* lohi /* rows: idx*2 */,
-    uint8_t* alt_blocks /* rows: idx*(S_pad/8) */) {
+    int8_t* qw /* rows: idx*W */,
+    int8_t* tw /* rows: idx*W */,
+    int32_t* scal /* rows: idx*4 */) {
     auto run_range = [&](int64_t a, int64_t b) {
         for (int64_t i = a; i < b; i++) {
-            int64_t g = i / 8, r = i % 8;
             wave_prepare_one(
                 (const int8_t*)q_ptrs[i], q_lens[i],
                 (const int8_t*)t_ptrs[i], t_lens[i],
                 (const int64_t*)tm_ptrs[i], m0s[i], W, S_pad,
-                meta + i * S_pad,
-                init + (g * 16 + r) * W,
-                init + (g * 16 + 8 + r) * W,
-                scal + i * 8,
-                lohi + i * 2,
-                alt_blocks + i * (S_pad / 8));
+                meta + i * S_pad, qw + i * W, tw + i * W, scal + i * 4);
         }
     };
     unsigned hw = std::thread::hardware_concurrency();

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from telr_tpu.config import MAP_PB, AssemblyConfig
-from telr_tpu.io.seqs import SeqDict, Sequence, revcomp_codes
-from telr_tpu.assembly.local import assemble_locus, consensus_vote
-from telr_tpu.kernels.mapper import Aligner
+from telr_jax.config import MAP_PB, AssemblyConfig
+from telr_jax.io.seqs import SeqDict, Sequence, revcomp_codes
+from telr_jax.assembly.local import assemble_locus, consensus_vote
+from telr_jax.kernels.mapper import Aligner
 
 
 def _noisy_copy(rng, codes, sub=0.05, ins=0.03, dele=0.03):
@@ -69,7 +69,7 @@ def test_assemble_missing_reads():
 def test_consensus_vote_deletion_majority():
     """A base deleted in most reads disappears from the consensus."""
     backbone = np.array([0, 1, 2, 3, 0, 1, 2, 3], dtype=np.int8)
-    from telr_tpu.kernels.mapper import Alignment
+    from telr_jax.kernels.mapper import Alignment
 
     def mk(cigar, qlen):
         return Alignment(qname="r", qlen=qlen, qstart=0, qend=qlen,
@@ -91,8 +91,8 @@ def test_extra_voters_polish_flanks_but_cannot_delete_te():
     flank columns they cover, but a read whose alignment walks a long
     deletion over the insertion is excluded from voting — otherwise at a
     het short-TE locus the reference haplotype would vote the TE away."""
-    from telr_tpu.assembly.local import _assemble_batch
-    from telr_tpu.utils.evallog import LociEval
+    from telr_jax.assembly.local import _assemble_batch
+    from telr_jax.utils.evallog import LociEval
 
     rng = np.random.default_rng(3)
     flank_l = rng.integers(0, 4, 1500).astype(np.int8)

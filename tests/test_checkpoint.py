@@ -2,12 +2,12 @@
 
 import numpy as np
 
-from telr_tpu.core.alignstore import AlignmentStore
-from telr_tpu.io.seqs import SeqDict, Sequence
-from telr_tpu.kernels.mapper import Alignment
-from telr_tpu.ops.intervals import Intervals
-from telr_tpu.sv.detect import SVRecord
-from telr_tpu.utils.checkpoint import Checkpointer
+from telr_jax.core.alignstore import AlignmentStore
+from telr_jax.io.seqs import SeqDict, Sequence
+from telr_jax.kernels.mapper import Alignment
+from telr_jax.ops.intervals import Intervals
+from telr_jax.sv.detect import SVRecord
+from telr_jax.utils.checkpoint import Checkpointer
 
 
 def _aln(name, tstart):

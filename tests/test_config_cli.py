@@ -2,8 +2,8 @@
 
 import pytest
 
-from telr_tpu.cli import config_from_args, get_args
-from telr_tpu.config import (ASM10, LIB_TO_SEQ, MAP_ONT, MAP_PB, PRESETS,
+from telr_jax.cli import config_from_args, get_args
+from telr_jax.config import (ASM10, LIB_TO_SEQ, MAP_ONT, MAP_PB, PRESETS,
                              default_config)
 
 
@@ -20,7 +20,7 @@ def test_read_preset_selection():
 
 def test_validate_rejects_bad_presets():
     import dataclasses
-    from telr_tpu.config import TELRConfig
+    from telr_jax.config import TELRConfig
     cfg = TELRConfig(presets="nanopore")
     with pytest.raises(ValueError):
         cfg.validate()

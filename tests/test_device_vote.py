@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from telr_tpu.assembly.local import consensus_vote
-from telr_tpu.assembly.device_vote import vote_many
-from telr_tpu.config import MAP_PB
-from telr_tpu.io.seqs import SeqDict, Sequence, revcomp_codes
-from telr_tpu.kernels.mapper import Aligner
+from telr_jax.assembly.local import consensus_vote
+from telr_jax.assembly.device_vote import vote_many
+from telr_jax.config import MAP_PB
+from telr_jax.io.seqs import SeqDict, Sequence, revcomp_codes
+from telr_jax.kernels.mapper import Aligner
 
 
 def _make_locus(rng, n_reads, bb_len, with_insert):

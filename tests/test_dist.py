@@ -6,23 +6,19 @@ import pytest
 import jax
 
 
-def _n_dev():
-    return len(jax.devices())
-
-
-@pytest.mark.skipif(_n_dev() < 8, reason="needs 8 virtual devices")
+@pytest.mark.usefixtures("eight_devices")
 def test_make_mesh_axes():
-    from telr_tpu.dist.mesh import make_mesh, READS_AXIS, LOCI_AXIS
+    from telr_jax.dist.mesh import make_mesh, READS_AXIS, LOCI_AXIS
     mesh = make_mesh(8, loci_parallel=2)
     assert mesh.axis_names == (READS_AXIS, LOCI_AXIS)
     assert mesh.devices.shape == (4, 2)
 
 
-@pytest.mark.skipif(_n_dev() < 8, reason="needs 8 virtual devices")
+@pytest.mark.usefixtures("eight_devices")
 def test_sharded_align_step_matches_single_device():
-    from telr_tpu.dist.mesh import make_mesh
-    from telr_tpu.dist.pipeline import make_sharded_align_step
-    from telr_tpu.kernels import dp
+    from telr_jax.dist.mesh import make_mesh
+    from telr_jax.dist.pipeline import make_sharded_align_step
+    from telr_jax.kernels import dp
 
     rng = np.random.default_rng(0)
     B, LQ, LT, W = 16, 128, 256, 128
@@ -47,7 +43,7 @@ def test_sharded_align_step_matches_single_device():
     assert np.array_equal(np.asarray(b_sh), np.asarray(b_ref))
 
 
-@pytest.mark.skipif(_n_dev() < 8, reason="needs 8 virtual devices")
+@pytest.mark.usefixtures("eight_devices")
 def test_graft_dryrun():
     import __graft_entry__ as g
     g.dryrun_multichip(8)
@@ -62,9 +58,9 @@ def test_pipeline_through_mesh_matches_host(tmp_path):
     ref_dir = "/root/reference/test"
     if not os.path.isdir(ref_dir):
         pytest.skip("bundled dataset unavailable")
-    from telr_tpu.config import default_config
-    from telr_tpu.dist.mesh import make_mesh
-    from telr_tpu.pipeline import run_pipeline
+    from telr_jax.config import default_config
+    from telr_jax.dist.mesh import make_mesh
+    from telr_jax.pipeline import run_pipeline
 
     args = (os.path.join(ref_dir, "reads.fasta"),
             os.path.join(ref_dir, "ref_38kb.fasta"),
@@ -83,16 +79,16 @@ def test_pipeline_through_mesh_matches_host(tmp_path):
         assert filecmp.cmp(out_host / f, out_mesh / f, shallow=False), f
 
 
-@pytest.mark.skipif(_n_dev() < 8, reason="needs 8 virtual devices")
+@pytest.mark.usefixtures("eight_devices")
 def test_depth_psum_matches_alignstore():
     """Mesh depth (CIGAR-true M spans + psum) must be bit-identical to
     AlignmentStore.coverage."""
-    from telr_tpu.config import MAP_PB
-    from telr_tpu.core.alignstore import AlignmentStore
-    from telr_tpu.dist.exec import mesh_coverage
-    from telr_tpu.dist.mesh import make_mesh
-    from telr_tpu.io.seqs import SeqDict, Sequence
-    from telr_tpu.kernels.mapper import Aligner
+    from telr_jax.config import MAP_PB
+    from telr_jax.core.alignstore import AlignmentStore
+    from telr_jax.dist.exec import mesh_coverage
+    from telr_jax.dist.mesh import make_mesh
+    from telr_jax.io.seqs import SeqDict, Sequence
+    from telr_jax.kernels.mapper import Aligner
 
     rng = np.random.default_rng(3)
     L = 3000

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from telr_tpu.kernels import dp
-from telr_tpu.io.seqs import encode
+from telr_jax.kernels import dp
+from telr_jax.io.seqs import encode
 
 
 def _rand_seq(rng, n):
@@ -123,75 +123,36 @@ def test_empty_and_degenerate():
     assert dp.align_pair(np.zeros(0, np.int8), q, dp.GLOBAL, PAR)["cigar"] == []
 
 
-def test_gmeta_alt_runs_monotone():
-    """The per-group alt-run slots must be sorted, pairwise disjoint and
-    confined to their region — the kernel's interleaved fori_loops would
-    silently skip or re-execute step blocks otherwise."""
-    import numpy as np
-    from telr_tpu.kernels.pallas_wavefront import (
-        prepare_wavefront_batch, N_ALT_RUNS, N_ALT_RUNS_EDGE)
-
-    rng = np.random.default_rng(11)
-    for seed in range(4):
-        rng = np.random.default_rng(seed)
-        pairs = []
-        for k in range(11):  # ragged: 2 groups incl. dummy rows
-            lt = int(rng.integers(300, 3000))
-            t = rng.integers(0, 4, lt).astype(np.int8)
-            q = t[: max(50, lt - int(rng.integers(0, 200)))].copy()
-            idx = rng.integers(0, len(q), max(1, len(q) // 20))
-            q[idx] = rng.integers(0, 4, len(idx))
-            pairs.append((q, t))
-        meta, init, scal, n_tiles, n, scheds, gmeta = \
-            prepare_wavefront_batch(pairs, 128, None)
-        for g in range(gmeta.shape[0]):
-            nb_end, ib0, ib1 = gmeta[g, 0], gmeta[g, 1], gmeta[g, 2]
-            assert 0 <= ib0 <= ib1 <= nb_end
-            slot = 4
-            prev = 0
-            for r_lo, r_hi, cap in ((0, ib0, N_ALT_RUNS_EDGE),
-                                    (ib0, ib1, N_ALT_RUNS),
-                                    (ib1, nb_end, N_ALT_RUNS_EDGE)):
-                prev = max(prev, r_lo)
-                for _ in range(cap):
-                    lo, hi = gmeta[g, slot], gmeta[g, slot + 1]
-                    slot += 2
-                    assert prev <= lo <= hi <= r_hi, (g, prev, lo, hi, r_hi)
-                    prev = hi
-                prev = r_hi
-
-
 def test_wavefront_static_drift_parity_ragged():
-    """Ragged group with near-identical pairs: most blocks run the
-    static-drift (canonical zigzag) masked/interior bodies.  Scores must
-    match the numpy oracle in every mode (interpret-mode Mosaic)."""
-    import numpy as np
-    from telr_tpu.kernels import dp as dpmod
-    from telr_tpu.kernels.pallas_wavefront import (prepare_wavefront_batch,
-                                                   run_wavefront_batch)
-    from telr_tpu.kernels.wavefront import build_schedule, numpy_wavefront
+    """Ragged batch (11 pairs padded to 16) of near-identical pairs whose
+    schedules are mostly the canonical zigzag: the XLA form's scores must
+    match the numpy recurrence in every mode."""
+    import jax
+    from telr_jax.kernels import dp as dpmod
+    from telr_jax.kernels.wave_align import prepare_wavefront_batch, xla_dp
+    from telr_jax.kernels.wavefront import build_schedule, numpy_wavefront
 
     rng = np.random.default_rng(77)
     W = 128
     pairs = []
-    for k in range(11):   # 2 groups, 5 dummy rows
-        lt = 700 + 60 * k
+    for k in range(11):
+        lt = 300 + 60 * k
         t = rng.integers(0, 4, lt).astype(np.int8)
         q = t[: lt - (0 if k % 2 else 40)].copy()
         idx = rng.integers(0, len(q), len(q) // 30)
         q[idx] = rng.integers(0, 4, len(idx))
         pairs.append((q, t))
-    batch = prepare_wavefront_batch(pairs, W, None)
-    gm = batch[6]
-    n_runs = (gm.shape[1] - 4) // 2
-    cov = sum(int(gm[g, 5 + 2 * i] - gm[g, 4 + 2 * i])
-              for g in range(gm.shape[0]) for i in range(n_runs))
-    assert cov > 0, "static-drift body not exercised"
+    batch = prepare_wavefront_batch(pairs, W, light=True)
+    assert batch.meta.shape[0] == 16
     params = dpmod.DPParams()
     scheds = [build_schedule(q, t, W) for q, t in pairs]
+    run = jax.jit(xla_dp, static_argnames=("width", "mode", "params_tuple"))
     for mode in (dpmod.GLOBAL, dpmod.EXTEND, dpmod.LOCAL):
-        g, b = run_wavefront_batch(batch, W, mode, params, interpret=True)
+        res, _dirs = run(batch.meta, batch.qw, batch.tw, batch.scal,
+                         width=W, mode=mode, params_tuple=params.tuple())
+        res = np.asarray(res)
         for i, (q, t) in enumerate(pairs):
             gs, bs = numpy_wavefront(q, t, scheds[i], W, mode, params)
-            want, got = (gs, g[i]) if mode == dpmod.GLOBAL else (bs, b[i])
+            want, got = (gs, res[i, 0]) if mode == dpmod.GLOBAL \
+                else (bs, res[i, 1])
             assert got == want, (mode, i, int(got), int(want))

@@ -2,7 +2,7 @@
 
 A 150kb repeat-dense genome with planted TSD'd insertions and noisy
 PacBio-CLR reads must be called perfectly (tools/genome_eval.py is the
-BASELINE ">=0.95 F1" stand-in; the full-scale artifact runs on TPU)."""
+BASELINE ">=0.95 F1" stand-in; the full-scale run goes through chip_smoke.py)."""
 
 import os
 import sys

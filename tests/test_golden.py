@@ -1,6 +1,6 @@
 """Golden-output regression pinning on the bundled dataset.
 
-Snapshots of telr_tpu's own outputs (round 1) guard future rounds against
+Snapshots of telr_jax's own outputs (round 1) guard future rounds against
 unintended behavioral drift: any diff here must be an intentional,
 reviewed change.  (Byte parity vs the reference's own outputs requires
 running the pinned TELR toolchain, which isn't available in this image —
@@ -12,7 +12,7 @@ import os
 
 import pytest
 
-from telr_tpu.pipeline import run_pipeline
+from telr_jax.pipeline import run_pipeline
 
 pytestmark = pytest.mark.e2e
 

@@ -11,9 +11,9 @@ fidelity check that was previously only asserted, not measured.
 import numpy as np
 import pytest
 
-from telr_tpu.config import LIB_TO_SEQ
-from telr_tpu.io.seqs import SeqDict, Sequence
-from telr_tpu.kernels.mapper import Aligner
+from telr_jax.config import LIB_TO_SEQ
+from telr_jax.io.seqs import SeqDict, Sequence
+from telr_jax.kernels.mapper import Aligner
 
 
 def _diverge(codes: np.ndarray, rate: float, rng) -> np.ndarray:

@@ -7,9 +7,9 @@ the TE homology filter."""
 
 import numpy as np
 
-from telr_tpu.config import MAP_ONT
-from telr_tpu.io.seqs import SeqDict, Sequence
-from telr_tpu.kernels.mapper import Aligner
+from telr_jax.config import MAP_ONT
+from telr_jax.io.seqs import SeqDict, Sequence
+from telr_jax.kernels.mapper import Aligner
 
 
 def _noisy(codes, rng, err=0.10):
@@ -51,9 +51,9 @@ def test_mid_insertion_full_length_signature():
 
     import dataclasses
 
-    from telr_tpu.config import SVConfig
-    from telr_tpu.io.seqs import SeqDict as SD
-    from telr_tpu.sv.detect import extract_signatures
+    from telr_jax.config import SVConfig
+    from telr_jax.io.seqs import SeqDict as SD
+    from telr_jax.sv.detect import extract_signatures
 
     class _Store:
         def __init__(self, alns):

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from telr_tpu.ops.intervals import (Intervals, closest, intersect_wao,
+from telr_jax.ops.intervals import (Intervals, closest, intersect_wao,
                                     merge_intervals)
 
 

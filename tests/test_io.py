@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from telr_tpu.io.fasta import iter_fasta, read_fasta, write_fasta
-from telr_tpu.io.seqs import (SeqDict, Sequence, decode, encode, pad_batch,
+from telr_jax.io.fasta import iter_fasta, read_fasta, write_fasta
+from telr_jax.io.seqs import (SeqDict, Sequence, decode, encode, pad_batch,
                               revcomp_codes, revcomp_str)
 
 

@@ -4,12 +4,12 @@ decision tree (non-reference + TSD, reference TE, single-flank rescue)."""
 import numpy as np
 import pytest
 
-from telr_tpu.config import ASM10, LiftoverConfig
-from telr_tpu.io.seqs import SeqDict, Sequence, decode, revcomp_codes
-from telr_tpu.kernels.mapper import Aligner
-from telr_tpu.liftover.engine import (check_nearby_ref, lift_annotation,
+from telr_jax.config import ASM10, LiftoverConfig
+from telr_jax.io.seqs import SeqDict, Sequence, decode, revcomp_codes
+from telr_jax.kernels.mapper import Aligner
+from telr_jax.liftover.engine import (check_nearby_ref, lift_annotation,
                                       liftover)
-from telr_tpu.ops.intervals import Intervals
+from telr_jax.ops.intervals import Intervals
 
 CFG = LiftoverConfig()
 
@@ -259,7 +259,7 @@ def test_check_nums_similar_zero_te_length():
     when cs == ce) must not crash the decision tree with a
     ZeroDivisionError (the reference has this bug, TELR_liftover.py:947;
     parity does not require crashing)."""
-    from telr_tpu.liftover.engine import _check_nums_similar
+    from telr_jax.liftover.engine import _check_nums_similar
     assert _check_nums_similar(0, 0) is True
     assert _check_nums_similar(5, 0) is False
     assert _check_nums_similar(100, 100) is True

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from telr_tpu.config import MAP_PB
-from telr_tpu.io.seqs import SeqDict, Sequence
-from telr_tpu.kernels.mapper import Aligner
+from telr_jax.config import MAP_PB
+from telr_jax.io.seqs import SeqDict, Sequence
+from telr_jax.kernels.mapper import Aligner
 
 
 def _ref(seed=0, n=5000):

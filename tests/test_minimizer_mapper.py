@@ -3,11 +3,11 @@
 import numpy as np
 import pytest
 
-from telr_tpu.config import MAP_PB
-from telr_tpu.io.seqs import SeqDict, Sequence, encode, revcomp_codes
-from telr_tpu.kernels.index import MinimizerIndex
-from telr_tpu.kernels.mapper import Aligner
-from telr_tpu.kernels.minimizer import minimizers, pack_kmers
+from telr_jax.config import MAP_PB
+from telr_jax.io.seqs import SeqDict, Sequence, encode, revcomp_codes
+from telr_jax.kernels.index import MinimizerIndex
+from telr_jax.kernels.mapper import Aligner
+from telr_jax.kernels.minimizer import minimizers, pack_kmers
 
 
 def test_pack_kmers_basic():
@@ -122,9 +122,9 @@ def test_map_batch_parallel_identity():
     """Forked multiprocess mapping must return exactly map_batch's
     alignments (per-read independence), in the same order."""
     import numpy as np
-    from telr_tpu.config import MAP_PB
-    from telr_tpu.io.seqs import SeqDict, Sequence
-    from telr_tpu.kernels.mapper import Aligner
+    from telr_jax.config import MAP_PB
+    from telr_jax.io.seqs import SeqDict, Sequence
+    from telr_jax.kernels.mapper import Aligner
 
     rng = np.random.default_rng(41)
     ref = rng.integers(0, 4, 30_000).astype(np.int8)

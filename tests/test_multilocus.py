@@ -11,10 +11,10 @@ import os
 import numpy as np
 import pytest
 
-from telr_tpu.config import default_config, SVConfig, TELRConfig, AssemblyConfig
-from telr_tpu.io.fasta import write_fasta
-from telr_tpu.io.seqs import Sequence, decode, revcomp_codes
-from telr_tpu.pipeline import run_pipeline
+from telr_jax.config import default_config, SVConfig, TELRConfig, AssemblyConfig
+from telr_jax.io.fasta import write_fasta
+from telr_jax.io.seqs import Sequence, decode, revcomp_codes
+from telr_jax.pipeline import run_pipeline
 
 pytestmark = pytest.mark.e2e
 

@@ -3,20 +3,20 @@
 import numpy as np
 import pytest
 
-from telr_tpu.io import native
+from telr_jax.io import native
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native library not built")
 
 
 def test_encode_parity():
-    from telr_tpu.io.seqs import encode as np_encode
+    from telr_jax.io.seqs import encode as np_encode
     s = b"ACGTNacgtnXYZ-\n" * 50
     assert np.array_equal(native.encode(s), np_encode(s))
 
 
 def test_fasta_scan_parity():
-    from telr_tpu.io.fasta import read_fasta
+    from telr_jax.io.fasta import read_fasta
     recs = native.scan_fasta("/root/reference/test/reads.fasta")
     ref = read_fasta("/root/reference/test/reads.fasta")
     assert len(recs) == len(ref)
@@ -26,11 +26,11 @@ def test_fasta_scan_parity():
 
 @pytest.mark.parametrize("n", [200, 5000, 50_000])
 def test_minimizer_parity(n):
-    from telr_tpu.kernels.minimizer import (pack_kmers, _sliding_argmin,
+    from telr_jax.kernels.minimizer import (pack_kmers, _sliding_argmin,
                                             _splitmix64)
     # compare against the pure-numpy implementation (bypass the native
     # dispatch inside minimizers())
-    import telr_tpu.kernels.minimizer as mz
+    import telr_jax.kernels.minimizer as mz
     rng = np.random.default_rng(n)
     codes = rng.integers(0, 4, n).astype(np.int8)
     codes[rng.integers(0, n, max(1, n // 100))] = 4
@@ -57,8 +57,8 @@ def test_native_banded_dp_parity():
     best-cell outputs and every direction byte within each pair's real
     rows (pad rows are never walked)."""
     import numpy as np
-    from telr_tpu.kernels import dp
-    from telr_tpu.io import native
+    from telr_jax.kernels import dp
+    from telr_jax.io import native
 
     if not native.has_banded_dp():
         import pytest
@@ -92,7 +92,7 @@ def test_native_symbols_present():
     """Every fast-path symbol must exist in a freshly built library —
     the hasattr-based gates silently fall back to Python otherwise
     (this caught a mangled-linkage regression once)."""
-    from telr_tpu.io import native
+    from telr_jax.io import native
     lib = native.load()
     if lib is None:
         import pytest
@@ -109,8 +109,8 @@ def test_native_traceback_parity():
     including LOCAL stops and band-escape errors."""
     import numpy as np
     import pytest
-    from telr_tpu.kernels import dp
-    from telr_tpu.io import native
+    from telr_jax.kernels import dp
+    from telr_jax.io import native
 
     if not native.has_traceback():
         pytest.skip("native library not built")
@@ -146,22 +146,23 @@ def test_native_traceback_parity():
 
 def test_wave_decode_batch_matches_python_rle():
     """Native batched wavefront decode (unpack + strip no-ops + reverse +
-    RLE + lead prepend) is byte-identical to the Python decode loop it
-    replaces (pallas_wavefront._rle + lead logic)."""
-    from telr_tpu.io import native
-    from telr_tpu.kernels.pallas_wavefront import _rle, _unpack_ops
+    RLE + lead prepend) is byte-identical to the Python decode it
+    replaces (wave_align._rle + lead logic)."""
+    from telr_jax.io import native
+    from telr_jax.kernels.wave_align import _rle, _unpack_ops
     if not native.has_wave_decode():
         import pytest
         pytest.skip("native wave decode unavailable")
     rng = np.random.default_rng(5)
     S, n = 256, 24
-    # op codes 0..3 with a bias toward runs and no-ops
-    ops = rng.choice([0, 0, 0, 1, 2, 3, 3, 3, 3], size=(S, n)).astype(np.uint8)
+    # op codes 0..3 with a bias toward runs and no-ops; (n, S) rows
+    ops = rng.choice([0, 0, 0, 1, 2, 3, 3, 3, 3], size=(n, S)).astype(np.uint8)
     # long constant stretches to exercise run merging
-    ops[40:90, 3] = 0
-    ops[10:200, 7] = 3
-    packed = (ops[0::4] | (ops[1::4] << 2) | (ops[2::4] << 4)
-              | (ops[3::4] << 6)).astype(np.uint8)
+    ops[3, 40:90] = 0
+    ops[7, 10:200] = 3
+    packed = (ops[:, 0::4] | (ops[:, 1::4] << 2) | (ops[:, 2::4] << 4)
+              | (ops[:, 3::4] << 6)).astype(np.uint8)
+    assert np.array_equal(_unpack_ops(packed), ops)
     fi = rng.integers(0, 5, n).astype(np.int32)
     fj = rng.integers(0, 5, n).astype(np.int32)
     bad = (rng.random(n) < 0.2).astype(np.int32)
@@ -169,7 +170,6 @@ def test_wave_decode_batch_matches_python_rle():
     for lead in (True, False):
         offsets, opsc, lensc = native.wave_decode_batch(
             packed, fi, fj, bad, lead)
-        up = _unpack_ops(packed)
         sym = {"M": 0, "D": 1, "I": 2}
         for k in range(n):
             got = list(zip(opsc[offsets[k]:offsets[k + 1]].tolist(),
@@ -177,7 +177,7 @@ def test_wave_decode_batch_matches_python_rle():
             if bad[k]:
                 assert got == []
                 continue
-            cigar = _rle(up[k])
+            cigar = _rle(ops[k])
             if lead:
                 lead_l = []
                 if fi[k] > 0:
@@ -195,16 +195,16 @@ def test_wave_decode_batch_matches_python_rle():
 
 def test_wave_prepare_batch_native_parity():
     """The native threaded prepare (light=True) emits bit-identical wire
-    arrays (meta/init/scal/gmeta) to the numpy per-pair packing loop."""
-    from telr_tpu.io import native
-    from telr_tpu.kernels.pallas_wavefront import prepare_wavefront_batch
+    arrays (meta/qw/tw/scal) to the numpy per-pair packing loop."""
+    from telr_jax.io import native
+    from telr_jax.kernels.wave_align import prepare_wavefront_batch
     lib = native.load()
     if lib is None or not hasattr(lib, "telr_wave_prepare_batch"):
         import pytest
         pytest.skip("native wave prepare unavailable")
     rng = np.random.default_rng(11)
     pairs, guides = [], []
-    for i in range(11):        # non-multiple of 8: dummy-pair padding
+    for i in range(11):        # non-power of two: padding pairs
         lq = int(rng.integers(60, 900))
         lt = lq + int(rng.integers(-40, 220))
         lt = max(40, lt)
@@ -221,11 +221,11 @@ def test_wave_prepare_batch_native_parity():
             guides.append(None)
     for width in (128, 512):
         full = prepare_wavefront_batch(pairs, width, guides,
-                                       min_groups=2, min_steps=512)
+                                       n_pad=16, s_pad=512)
         lite = prepare_wavefront_batch(pairs, width, guides,
-                                       min_groups=2, min_steps=512,
-                                       light=True)
-        for k, name in ((0, "meta"), (1, "init"), (2, "scal"),
-                        (6, "gmeta")):
-            assert np.array_equal(full[k], lite[k]), (name, width)
-        assert full[3] == lite[3] and full[4] == lite[4]
+                                       n_pad=16, s_pad=512, light=True)
+        for name in ("meta", "qw", "tw", "scal"):
+            assert np.array_equal(getattr(full, name),
+                                  getattr(lite, name)), (name, width)
+        assert full.n == lite.n == 11
+        assert full.meta.shape == (16, 2048)

@@ -10,7 +10,7 @@ import os
 
 import pytest
 
-from telr_tpu.pipeline import run_pipeline
+from telr_jax.pipeline import run_pipeline
 
 pytestmark = pytest.mark.e2e
 

@@ -4,8 +4,8 @@ the wtpoa-cns role — reference TELR_assembly.py:225-247)."""
 import numpy as np
 import pytest
 
-from telr_tpu.io import native
-from telr_tpu.kernels import dp
+from telr_jax.io import native
+from telr_jax.kernels import dp
 
 pytestmark = pytest.mark.skipif(not native.has_poa(),
                                 reason="native POA not built")

@@ -5,8 +5,8 @@ import pytest
 
 import jax
 
-from telr_tpu.dist.mesh import make_mesh
-from telr_tpu.dist.redistribute import (make_redistribute_step, owner_of,
+from telr_jax.dist.mesh import make_mesh
+from telr_jax.dist.redistribute import (make_redistribute_step, owner_of,
                                         pack_sends, redistribute_host,
                                         unpack_received)
 
@@ -23,7 +23,7 @@ def test_host_reference_routing():
     assert out[1] == [(1, 9), (3, 2)]
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
+@pytest.mark.usefixtures("eight_devices")
 def test_device_all_to_all_matches_reference():
     rng = np.random.default_rng(0)
     n = 8
@@ -49,11 +49,11 @@ def test_capacity_overflow_raises():
         pack_sends(pairs, 1, capacity=4)
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 virtual devices")
+@pytest.mark.usefixtures("eight_devices")
 def test_payload_all_to_all_moves_read_codes():
     """The payload collective must deliver every (locus, rank, kind) item
     to the locus' owner with its read codes intact."""
-    from telr_tpu.dist.redistribute import redistribute_payloads
+    from telr_jax.dist.redistribute import redistribute_payloads
 
     rng = np.random.default_rng(1)
     n = 8
@@ -84,8 +84,8 @@ def test_exchange_bytes_roundtrip():
     """exchange_bytes_mp self-route (P=1 degenerate) returns the blob."""
     import jax
     from jax.sharding import Mesh
-    from telr_tpu.dist.mesh import READS_AXIS
-    from telr_tpu.dist.redistribute import exchange_bytes_mp
+    from telr_jax.dist.mesh import READS_AXIS
+    from telr_jax.dist.redistribute import exchange_bytes_mp
     import numpy as np
 
     mesh = Mesh(np.array(jax.devices()[:1]), (READS_AXIS,))
@@ -99,8 +99,8 @@ def test_exchange_bytes_chunking():
     equal to the -1 pad value."""
     import jax
     from jax.sharding import Mesh
-    from telr_tpu.dist.mesh import READS_AXIS
-    from telr_tpu.dist.redistribute import exchange_bytes_mp
+    from telr_jax.dist.mesh import READS_AXIS
+    from telr_jax.dist.redistribute import exchange_bytes_mp
     import numpy as np
 
     mesh = Mesh(np.array(jax.devices()[:1]), (READS_AXIS,))

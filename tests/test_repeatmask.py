@@ -10,8 +10,8 @@ import logging
 import numpy as np
 import pytest
 
-from telr_tpu.annotate.repeatmask import repeatmask_reference
-from telr_tpu.io.seqs import SeqDict, Sequence, revcomp_codes
+from telr_jax.annotate.repeatmask import repeatmask_reference
+from telr_jax.io.seqs import SeqDict, Sequence, revcomp_codes
 
 
 def _make_high_copy_genome(n_copies, te_len=400, spacer=300, seed=7):
@@ -66,8 +66,8 @@ def test_job_sharded_repeatmask_bit_identical(P):
     postprocess sees the same ordered list (dist/runner.py ref_repeatmask)."""
     import dataclasses as _dc
 
-    from telr_tpu.config import LIB_TO_SEQ
-    from telr_tpu.kernels.mapper import Aligner, map_batch_grouped
+    from telr_jax.config import LIB_TO_SEQ
+    from telr_jax.kernels.mapper import Aligner, map_batch_grouped
 
     genome, library, truth = _make_high_copy_genome(9)
     # add a second, low-copy family so the job list spans families

@@ -4,7 +4,7 @@ import os
 
 import pytest
 
-from telr_tpu.pipeline import run_pipeline
+from telr_jax.pipeline import run_pipeline
 
 pytestmark = pytest.mark.e2e
 
@@ -36,7 +36,7 @@ def test_changed_inputs_invalidate_checkpoints(tmp_path):
     """Rerunning into the same checkpoint dir with different inputs or
     semantic config must NOT resume stale stages (the stages are keyed
     by name only; the input fingerprint guards them)."""
-    from telr_tpu.config import SVConfig, TELRConfig
+    from telr_jax.config import SVConfig, TELRConfig
 
     ck = str(tmp_path / "ckpt")
     args = (os.path.join(DATA, "reads.fasta"),

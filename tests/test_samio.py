@@ -2,11 +2,11 @@
 
 import numpy as np
 
-from telr_tpu.config import MAP_PB
-from telr_tpu.core.alignstore import AlignmentStore
-from telr_tpu.io.samio import parse_cigar, read_sam, write_sam
-from telr_tpu.io.seqs import SeqDict, Sequence, revcomp_codes
-from telr_tpu.kernels.mapper import Aligner
+from telr_jax.config import MAP_PB
+from telr_jax.core.alignstore import AlignmentStore
+from telr_jax.io.samio import parse_cigar, read_sam, write_sam
+from telr_jax.io.seqs import SeqDict, Sequence, revcomp_codes
+from telr_jax.kernels.mapper import Aligner
 
 
 def test_parse_cigar_folding():
@@ -72,7 +72,7 @@ def _toy_store(n=4, L=5000):
 
 
 def test_bam_roundtrip(tmp_path):
-    from telr_tpu.io.samio import read_bam, write_bam
+    from telr_jax.io.samio import read_bam, write_bam
     store, reads, _ = _toy_store()
     bam = tmp_path / "out.bam"
     write_bam(store, reads, str(bam), tlens={"chrR": 5000})
@@ -95,7 +95,7 @@ def test_bam_readable_by_pysam_equivalent(tmp_path):
     magic + reference dictionary (external-tool compatibility surface)."""
     import gzip as _gzip
     import struct as _struct
-    from telr_tpu.io.samio import write_bam
+    from telr_jax.io.samio import write_bam
     store, reads, _ = _toy_store(n=2)
     bam = tmp_path / "out.bam"
     write_bam(store, reads, str(bam), tlens={"chrR": 5000})
@@ -109,16 +109,16 @@ def test_bam_readable_by_pysam_equivalent(tmp_path):
 def test_prealigned_pipeline_input(tmp_path):
     """A .bam reads input skips the alignment stage and produces the same
     calls as the fasta path (reference TELR_input.py:299-305)."""
-    from telr_tpu.io.fasta import write_fasta
-    from telr_tpu.io.samio import write_bam
-    from telr_tpu.pipeline import run_pipeline
+    from telr_jax.io.fasta import write_fasta
+    from telr_jax.io.samio import write_bam
+    from telr_jax.pipeline import run_pipeline
     import os
     ref_dir = "/root/reference/test"
     if not os.path.isdir(ref_dir):
         import pytest
         pytest.skip("bundled dataset unavailable")
-    from telr_tpu.io.fasta import read_fasta
-    from telr_tpu.config import default_config, MAP_PB as _PB
+    from telr_jax.io.fasta import read_fasta
+    from telr_jax.config import default_config, MAP_PB as _PB
     reads = read_fasta(os.path.join(ref_dir, "reads.fasta"))
     reference = read_fasta(os.path.join(ref_dir, "ref_38kb.fasta"))
     aligner = Aligner(reference, _PB)

@@ -14,11 +14,11 @@ never stitches; its assembly sees the raw per-locus reads instead).
 import numpy as np
 import pytest
 
-from telr_tpu.config import MAP_ONT, MAP_PB, SVConfig
-from telr_tpu.core.alignstore import AlignmentStore
-from telr_tpu.io.seqs import SeqDict, Sequence
-from telr_tpu.kernels.mapper import Aligner
-from telr_tpu.sv.detect import detect_insertions
+from telr_jax.config import MAP_ONT, MAP_PB, SVConfig
+from telr_jax.core.alignstore import AlignmentStore
+from telr_jax.io.seqs import SeqDict, Sequence
+from telr_jax.kernels.mapper import Aligner
+from telr_jax.sv.detect import detect_insertions
 
 
 def _noisy(codes, rng, err):

@@ -3,16 +3,16 @@
 import numpy as np
 import pytest
 
-from telr_tpu.config import MAP_PB, SVConfig
-from telr_tpu.core.alignstore import AlignmentStore
-from telr_tpu.io.seqs import SeqDict, Sequence, decode, revcomp_codes
-from telr_tpu.kernels.mapper import Aligner
-from telr_tpu.sv.detect import (InsSignature, cluster_signatures,
+from telr_jax.config import MAP_PB, SVConfig
+from telr_jax.core.alignstore import AlignmentStore
+from telr_jax.io.seqs import SeqDict, Sequence, decode, revcomp_codes
+from telr_jax.kernels.mapper import Aligner
+from telr_jax.sv.detect import (InsSignature, cluster_signatures,
                                 detect_insertions, extract_signatures)
-from telr_tpu.sv.filter import filter_te_candidates
-from telr_tpu.sv.merge import merge_nearby_records
-from telr_tpu.sv.detect import SVRecord
-from telr_tpu.utils.evallog import LociEval
+from telr_jax.sv.filter import filter_te_candidates
+from telr_jax.sv.merge import merge_nearby_records
+from telr_jax.sv.detect import SVRecord
+from telr_jax.utils.evallog import LociEval
 
 
 def _mk_reads_with_insertion(rng, ref, ins, n_alt=6, n_ref=4, readlen=3000):
@@ -246,7 +246,7 @@ def test_junction_stitch_spanning_backbone():
     """A long insertion covered only by junction reads: the jr/jl pair
     overlapping inside the TE body is stitched into the true insertion
     sequence plus a synthetic flank-to-flank spanning backbone."""
-    from telr_tpu.sv.detect import _stitch_junctions
+    from telr_jax.sv.detect import _stitch_junctions
 
     rng = np.random.default_rng(23)
     L = rng.integers(0, 4, 1000).astype(np.int8)
@@ -287,7 +287,7 @@ def test_junction_stitch_minus_strand_and_spanning_jr():
     a raw-strand coordinate — junction must be length-derived) and (b)
     the jr read spans past the TE into the right flank (the overlap then
     legitimately ends at S's tail, not P's)."""
-    from telr_tpu.sv.detect import _stitch_junctions
+    from telr_jax.sv.detect import _stitch_junctions
 
     rng = np.random.default_rng(31)
     L = rng.integers(0, 4, 1000).astype(np.int8)

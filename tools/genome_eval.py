@@ -351,8 +351,8 @@ def simulate_dataset(size=5_000_000, coverage=30, n_ins=30, seed=0,
     (ref_fa, reads_fa, lib_fa, truth, n_reads, n_bases).  Shared by the
     single-process eval below and the multi-process scaling harness
     (tools/two_process_pipeline.py)."""
-    from telr_tpu.io.fasta import write_fasta
-    from telr_tpu.io.seqs import SeqDict, Sequence
+    from telr_jax.io.fasta import write_fasta
+    from telr_jax.io.seqs import SeqDict, Sequence
 
     rng = np.random.default_rng(seed)
     t0 = time.time()
@@ -396,10 +396,12 @@ def run_eval(size=5_000_000, coverage=30, n_ins=30, seed=0,
              use_wavefront=False, out_path="GENOME_EVAL.json",
              workdir=None, read_len=9000, threads=1, chroms=1,
              ont_profile=False, wavefront_stages=None, hard=False):
-    from telr_tpu.utils.procpool import ensure_forkserver
+    from telr_jax.utils.procpool import ensure_forkserver
     ensure_forkserver()   # before jax spins up threads (see procpool.py)
-    from telr_tpu.config import TELRConfig, SVConfig
-    from telr_tpu.pipeline import run_pipeline
+    from telr_jax.utils.runtime import init_compile_cache
+    init_compile_cache()
+    from telr_jax.config import TELRConfig, SVConfig
+    from telr_jax.pipeline import run_pipeline
 
     import tempfile
     workdir = workdir or tempfile.mkdtemp(prefix="telr_eval")

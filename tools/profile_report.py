@@ -8,7 +8,7 @@ Finds the `telr_stage:<name>` spans the pipeline emits (pipeline.py
 timed()) and attributes every device-lane op whose timestamp falls inside
 a stage span to that stage.  The output table is the SURVEY §5
 "tracing/profiling" artifact: measured device seconds per stage next to
-wall seconds — "TPU-native" as a number, not an assertion.
+wall seconds.  Device lanes are the GPU planes (`/device:GPU:N`).
 
 Data source: `*.xplane.pb` (the profiler's complete event store), parsed
 with a minimal protobuf wire reader below — the exported perfetto
@@ -147,7 +147,7 @@ def build_report_xplane(path: str) -> dict:
     device_planes = []  # (plane_name, [(line_name, ts_ns, [event spans])])
 
     for pname, lines, meta in iter_planes(path):
-        is_dev = pname.startswith("/device:") or "TPU" in pname
+        is_dev = pname.startswith("/device:GPU:")
         if is_dev:
             parsed = [_parse_line(lb) for lb in lines]
             device_planes.append((pname, parsed))
@@ -231,8 +231,7 @@ def build_report(trace: dict) -> dict:
             tid_names[(e["pid"], e.get("tid"))] = e["args"].get("name", "")
 
     device_pids = {p for p, n in pid_names.items()
-                   if "TPU" in n or "/device" in n.lower()
-                   or "Device" in n}
+                   if "/device:GPU:" in n}
     stages = []   # (name, ts, te)
     for e in events:
         if e.get("ph") == "X" and str(e.get("name", "")).startswith(

@@ -5,7 +5,7 @@ subset of the reads through Aligner.map_batch, and prints a cProfile
 cumulative-time table plus a coarse planning/DP wall split.  The VERDICT r3
 finding this chases: at 100 Mb the alignment stage runs 0.665 MB/s with the
 host-side planning (seeding/chaining/piece dispatch in kernels/mapper.py)
-dominating both CPU and TPU backends.
+dominating both CPU and GPU backends.
 
 Usage: python tools/profile_stage1.py [--size 3000000] [--coverage 5]
            [--reads 400] [--wavefront]
@@ -50,9 +50,9 @@ def main():
 
     import dataclasses
 
-    from telr_tpu.io.seqs import SeqDict, Sequence
-    from telr_tpu.config import default_config
-    from telr_tpu.kernels.mapper import Aligner
+    from telr_jax.io.seqs import SeqDict, Sequence
+    from telr_jax.config import default_config
+    from telr_jax.kernels.mapper import Aligner
 
     ref = SeqDict([Sequence("chr2L", genome)])
     cfg = default_config("pacbio")
